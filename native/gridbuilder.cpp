@@ -1,14 +1,14 @@
 // Native scene-construction runtime.
 //
-// The TPU framework's compute path is JAX/XLA; host-side scene construction
+// The framework's compute path is JAX/XLA; host-side scene construction
 // (the part the reference does with worker threads + atomics:
 // reference terrain/terrain.zig:113-127 spawning N threads over X-slabs,
 // brick/Grid.zig:141-148 atomic brick allocation,
 // brick/MaterialAllocator.zig:34-43 atomic material-window bump allocator)
 // is re-implemented here as a C++ shared library driven through ctypes
-// (see zig_vulkan_tpu/io/native_builder.py).
+// (see zig_vulkan_jax/io/native_builder.py).
 //
-// Data layout matches zig_vulkan_tpu.core.grid exactly:
+// Data layout matches zig_vulkan_jax.core.grid exactly:
 //   statuses   u32[ceil(cells/32)]  1 bit per cell
 //   indices    u32[cells]           cell -> brick slot
 //   occupancy  u32[brick_alloc*2]   64 voxel bits per brick (little-endian)

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from zig_vulkan_tpu.app.input import Action, Input, Key
-from zig_vulkan_tpu.config import CameraConfig
-from zig_vulkan_tpu.core.camera import Camera
-from zig_vulkan_tpu.io import image as img_io
+from zig_vulkan_jax.app.input import Action, Input, Key
+from zig_vulkan_jax.config import CameraConfig
+from zig_vulkan_jax.core.camera import Camera
+from zig_vulkan_jax.io import image as img_io
 
 
 def test_input_bindings_translate_camera():
@@ -69,7 +69,7 @@ def test_png_ppm_roundtrip(tmp_path):
 
 
 def test_app_main_headless(tmp_path):
-    from zig_vulkan_tpu.app import run
+    from zig_vulkan_jax.app import run
 
     rc = run.main([
         "--width", "16", "--height", "16", "--grid", "4", "2", "4",
@@ -81,7 +81,7 @@ def test_app_main_headless(tmp_path):
 
 
 def test_app_benchmark_mode(capsys):
-    from zig_vulkan_tpu.app import run
+    from zig_vulkan_jax.app import run
 
     rc = run.main([
         "--width", "16", "--height", "16", "--grid", "4", "2", "4",
@@ -92,7 +92,7 @@ def test_app_benchmark_mode(capsys):
 
 
 def test_profiling_zones_and_frame_mark():
-    from zig_vulkan_tpu.utils import profiling
+    from zig_vulkan_jax.utils import profiling
 
     events = []
     profiling.set_log_fn(lambda name, dt, extra="": events.append(name))

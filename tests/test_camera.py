@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.config import CameraConfig
-from zig_vulkan_tpu.core.camera import Camera
+from zig_vulkan_jax.config import CameraConfig
+from zig_vulkan_jax.core.camera import Camera
 
 
 def make_camera(**kw):

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from zig_vulkan_tpu.config import (
+from zig_vulkan_jax.config import (
     CameraConfig, DenoiserConfig, EngineConfig, SunConfig)
-from zig_vulkan_tpu.engine.controls import ControlPanel
-from zig_vulkan_tpu.engine.engine import VoxelRT
-from zig_vulkan_tpu.models.scenes import flat_test_scene
+from zig_vulkan_jax.engine.controls import ControlPanel
+from zig_vulkan_jax.engine.engine import VoxelRT
+from zig_vulkan_jax.models.scenes import flat_test_scene
 
 
 def panel():

@@ -4,8 +4,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from zig_vulkan_tpu.config import DenoiserConfig
-from zig_vulkan_tpu.ops import denoise as dn
+from zig_vulkan_jax.config import DenoiserConfig
+from zig_vulkan_jax.ops import denoise as dn
 
 GOLDEN_ANGLE = dn.GOLDEN_ANGLE
 F = np.float32
@@ -133,3 +133,18 @@ def test_runtime_samples_single_trace():
                                   max_samples=dn.MAX_RUNTIME_SAMPLES))
     assert dn._denoise_runtime._cache_size() == misses0 + 1
     assert np.abs(out8 - out32).max() > 1e-6
+
+
+def test_vectorized_oracle_matches_scalar_transliteration():
+    """oracle.cpu_denoise (whole-image numpy, the on-card comparison's
+    reference) equals the scalar per-pixel transliteration above, and
+    the JAX filter agrees with it to float32 rounding."""
+    from zig_vulkan_jax.oracle import cpu_denoise
+
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0.0, 1.0, size=(12, 20, 3)).astype(F)
+    vec = cpu_denoise.sir_bird(img)
+    np.testing.assert_allclose(vec, _np_sirbird(img.astype(np.float64)),
+                               atol=1e-6)
+    got = np.asarray(dn.denoise(jnp.asarray(img)))
+    assert np.abs(got - vec).max() < 1e-5

@@ -10,8 +10,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from zig_vulkan_tpu.core.grid import GridStatic
-from zig_vulkan_tpu.ops.trace import DIST_CAP, _distance_field
+from zig_vulkan_jax.core.grid import GridStatic
+from zig_vulkan_jax.ops.trace import DIST_CAP, _distance_field
 
 
 def _brute_force(vol: np.ndarray) -> np.ndarray:
@@ -40,7 +40,7 @@ def test_safe_vs_brute_force(seed, density):
     """The field must NEVER overestimate the true distance (safety), must
     be exact in the near field (<= _DF_EXACT_RADIUS), and must keep at
     least ~half the true skip in the far field (quality floor)."""
-    from zig_vulkan_tpu.ops.trace import _DF_EXACT_RADIUS
+    from zig_vulkan_jax.ops.trace import _DF_EXACT_RADIUS
 
     rng = np.random.default_rng(seed)
     shape = (12, 47, 23)  # deliberately non-aligned odd dims

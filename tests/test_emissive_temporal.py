@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from zig_vulkan_tpu.config import (
+from zig_vulkan_jax.config import (
     CameraConfig, DenoiserConfig, EngineConfig, SunConfig, TraceConfig)
-from zig_vulkan_tpu.core.materials import MAT_EMISSIVE
-from zig_vulkan_tpu.engine.engine import VoxelRT
-from zig_vulkan_tpu.models.scenes import flat_test_scene
-from zig_vulkan_tpu.oracle import cpu_tracer as oracle
-from zig_vulkan_tpu.core.camera import Camera
-from zig_vulkan_tpu.core.sun import Sun
-from zig_vulkan_tpu.ops import trace
+from zig_vulkan_jax.core.materials import MAT_EMISSIVE
+from zig_vulkan_jax.engine.engine import VoxelRT
+from zig_vulkan_jax.models.scenes import flat_test_scene
+from zig_vulkan_jax.oracle import cpu_tracer as oracle
+from zig_vulkan_jax.core.camera import Camera
+from zig_vulkan_jax.core.sun import Sun
+from zig_vulkan_jax.ops import trace
 
 
 def emissive_scene():

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from zig_vulkan_tpu.config import (
+from zig_vulkan_jax.config import (
     CameraConfig,
     DenoiserConfig,
     EngineConfig,
     SunConfig,
     TraceConfig,
 )
-from zig_vulkan_tpu.engine.engine import VoxelRT, device_name
-from zig_vulkan_tpu.models.scenes import flat_test_scene
+from zig_vulkan_jax.engine.engine import VoxelRT, device_name
+from zig_vulkan_jax.models.scenes import flat_test_scene
 
 
 def small_engine(**overrides):
@@ -89,7 +89,7 @@ def test_benchmark_runs_and_reports():
 
 
 def test_scene_save_load_roundtrip(tmp_path):
-    from zig_vulkan_tpu.io.scene_io import load_scene
+    from zig_vulkan_jax.io.scene_io import load_scene
 
     rt = small_engine()
     p = str(tmp_path / "scene.npz")
@@ -111,7 +111,7 @@ def test_set_denoiser_knobs():
 
 def test_flush_grid_resyncs_scene():
     import numpy as np
-    from zig_vulkan_tpu.models.scenes import flat_test_scene
+    from zig_vulkan_jax.models.scenes import flat_test_scene
 
     rt = small_engine()
     before = np.asarray(rt.render())
@@ -128,8 +128,8 @@ def test_flush_grid_resyncs_scene():
 
 def test_debug_validation_mode():
     import jax
-    from zig_vulkan_tpu.models.scenes import flat_test_scene
-    from zig_vulkan_tpu.config import EngineConfig, CameraConfig, SunConfig, DenoiserConfig
+    from zig_vulkan_jax.models.scenes import flat_test_scene
+    from zig_vulkan_jax.config import EngineConfig, CameraConfig, SunConfig, DenoiserConfig
 
     sc = flat_test_scene(dim=8)
     cfg = EngineConfig(
@@ -145,7 +145,7 @@ def test_debug_validation_mode():
         img = np.asarray(rt.render())
         assert np.isfinite(img).all()
     finally:
-        from zig_vulkan_tpu.utils import validation
+        from zig_vulkan_jax.utils import validation
         validation.disable_debug_mode()
 
 
@@ -169,9 +169,9 @@ def test_insert_overflow_raises():
     engine must surface exhaustion as an error instead."""
     import pytest
 
-    from zig_vulkan_tpu.config import GridConfig
-    from zig_vulkan_tpu.core.grid import BrickGrid
-    from zig_vulkan_tpu.core.materials import terrain_materials
+    from zig_vulkan_jax.config import GridConfig
+    from zig_vulkan_jax.core.grid import BrickGrid
+    from zig_vulkan_jax.core.materials import terrain_materials
 
     grid = BrickGrid(8, 8, 8, GridConfig(brick_alloc=2))
     mats = terrain_materials()
@@ -194,7 +194,7 @@ def test_incremental_table_refresh_matches_full_rebuild():
     from-scratch rebuild."""
     import jax
     import jax.numpy as jnp
-    from zig_vulkan_tpu.ops import trace as trace_mod
+    from zig_vulkan_jax.ops import trace as trace_mod
 
     rt = small_engine()
     rt.render()  # builds + caches tables
@@ -213,87 +213,6 @@ def test_incremental_table_refresh_matches_full_rebuild():
     want = np.asarray(trace_mod.build_trace_tables(
         rt.grid_static, rt.arrays, rt._dist))
     np.testing.assert_array_equal(got, want)
-
-
-def test_degraded_scene_switches_to_concurrent_serve():
-    """The adaptive serve policy (round 4: a direct ROAMABILITY measure —
-    fraction of non-empty regions — replacing the round-3 edit-history
-    heuristic): once inserts mark more than `degraded_nonempty_fraction`
-    of regions non-empty, _scene_degraded() flips, the step key changes
-    (incoherent classes route through the concurrent multi-region
-    serve), and rendering still works. Edits confined to already
-    non-empty regions — however many distinct cells — must NOT trip it."""
-    rt = small_engine()
-    # the flat test scene: floor region non-empty, sky region empty
-    assert rt._n_regions == 2
-    assert len(rt._nonempty_regions) == 1
-    assert not rt._scene_degraded()
-    key0 = rt._step_key()
-
-    # hammer cells in the already-occupied floor region: never degrades,
-    # regardless of how many distinct cells the batches touch
-    xyz_same = np.stack(np.meshgrid(np.arange(0, 32), np.arange(8, 12),
-                                    np.arange(0, 32), indexing="ij"),
-                        axis=-1).reshape(-1, 3).astype(np.int32)
-    for _ in range(2):
-        rt.insert_voxels(xyz_same, np.full(xyz_same.shape[0], 5, np.uint8))
-    assert not rt._scene_degraded(), \
-        "edits inside non-empty regions must not degrade"
-
-    # spray into the empty sky region: roaming collapses -> degraded
-    rng = np.random.default_rng(3)
-    vx, vy, vz = rt.grid_static.voxel_dims
-    xyz = np.stack([rng.integers(0, vx, 128),
-                    rng.integers(vy - 8, vy, 128),
-                    rng.integers(0, vz, 128)], axis=-1).astype(np.int32)
-    rt.insert_voxels(xyz, np.full(128, 5, np.uint8))
-    assert rt._scene_degraded()
-    key1 = rt._step_key()
-    assert key0 != key1, "degraded flag must change the step key"
-    img = np.asarray(rt.render())
-    assert np.isfinite(img).all()
-
-
-def test_scene_loaded_degraded_detected_at_init():
-    """A scene that ARRIVES with collapsed roaming (e.g. loaded via
-    scene_io) must be detected at engine construction — the round-3
-    edit-history heuristic could not see this."""
-    from zig_vulkan_tpu.models.scenes import flat_test_scene
-
-    sc = flat_test_scene(dim=8)
-    rng = np.random.default_rng(11)
-    vx, vy, vz = sc.grid.static.voxel_dims
-    xyz = np.stack([rng.integers(0, vx, 256), rng.integers(0, vy, 256),
-                    rng.integers(0, vz, 256)], axis=-1).astype(np.int32)
-    sc.grid.insert_batch(xyz[:, 0], xyz[:, 1], xyz[:, 2],
-                         np.full(256, 5, dtype=np.uint8))
-    cfg = EngineConfig(
-        internal_resolution_width=32, internal_resolution_height=24,
-        camera=CameraConfig(origin=(4.0, 6.5, 15.0), samples_per_pixel=1,
-                            max_bounce=0),
-        sun=SunConfig(enabled=False), denoiser=DenoiserConfig(enabled=False),
-        trace=TraceConfig(max_steps=256))
-    rt = VoxelRT(sc.grid, sc.materials, cfg)
-    assert rt._scene_degraded()
-
-
-def test_bounce_concurrent_override():
-    """TraceConfig.bounce_concurrent forces the incoherent-class serve
-    policy either way (None = auto-by-roamability); the override is part
-    of the step key and the forced-on/off steps render finitely."""
-    rt_auto = small_engine()
-    rt_on = small_engine(trace=TraceConfig(max_steps=256,
-                                           bounce_concurrent=True))
-    rt_off = small_engine(trace=TraceConfig(max_steps=256,
-                                            bounce_concurrent=False))
-    # auto resolves to ON (round 4: concurrent is the incoherent-class
-    # default on every scene); forced-off differs
-    assert rt_auto._step_key() == rt_on._step_key()
-    assert rt_on._step_key() != rt_off._step_key()
-    for rt in (rt_on, rt_off):
-        img = np.asarray(rt.render())
-        assert img.shape == (24, 32, 3)
-        assert np.isfinite(img).all()
 
 
 def test_denoiser_samples_runtime_no_retrace():
@@ -322,3 +241,4 @@ def test_denoiser_samples_runtime_no_retrace():
     c = np.asarray(rt.render())
     assert len(rt._step_cache) == 1
     assert not np.array_equal(b, c)
+

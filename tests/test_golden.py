@@ -1,7 +1,7 @@
 """Golden-image regression tests (SURVEY.md §4 test plan item (c)).
 
 Goldens were produced by the numpy oracle (deterministic across
-environments); both the oracle and the TPU tracer must keep reproducing
+environments); both the oracle and the JAX tracer must keep reproducing
 them. Regenerate with the snippet in the git history if semantics
 intentionally change.
 """
@@ -10,12 +10,12 @@ import os
 
 import numpy as np
 
-from zig_vulkan_tpu.config import CameraConfig, SunConfig
-from zig_vulkan_tpu.core.camera import Camera
-from zig_vulkan_tpu.core.sun import Sun
-from zig_vulkan_tpu.models.scenes import flat_test_scene
-from zig_vulkan_tpu.oracle import cpu_tracer as oracle
-from zig_vulkan_tpu.ops import trace
+from zig_vulkan_jax.config import CameraConfig, SunConfig
+from zig_vulkan_jax.core.camera import Camera
+from zig_vulkan_jax.core.sun import Sun
+from zig_vulkan_jax.models.scenes import flat_test_scene
+from zig_vulkan_jax.oracle import cpu_tracer as oracle
+from zig_vulkan_jax.ops import trace
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "flat_scene_renders.npz")
@@ -45,7 +45,7 @@ def test_default_scene_golden():
     import pytest
 
     g = np.load(_golden("default_scene_render.npz"))
-    from zig_vulkan_tpu.models.scenes import cached_default_scene
+    from zig_vulkan_jax.models.scenes import cached_default_scene
 
     cache = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), ".bench_scene_cache.npz")
@@ -75,12 +75,12 @@ def test_doom_vox_asset_golden():
     vox_path = "/root/reference/assets/models/doom.vox"
     if not os.path.exists(vox_path):
         pytest.skip("reference assets not mounted")
-    from zig_vulkan_tpu.config import GridConfig
-    from zig_vulkan_tpu.core.grid import BrickGrid
-    from zig_vulkan_tpu.core.materials import (fill_from_vox_palette,
+    from zig_vulkan_jax.config import GridConfig
+    from zig_vulkan_jax.core.grid import BrickGrid
+    from zig_vulkan_jax.core.materials import (fill_from_vox_palette,
                                                terrain_materials)
-    from zig_vulkan_tpu.io import vox as vox_mod
-    from zig_vulkan_tpu.models.scenes import insert_vox_model
+    from zig_vulkan_jax.io import vox as vox_mod
+    from zig_vulkan_jax.models.scenes import insert_vox_model
 
     g = np.load(_golden("doom_vox_render.npz"))
     model = vox_mod.load(vox_path)
@@ -110,7 +110,7 @@ def test_doom_vox_asset_golden():
 def test_denoiser_golden():
     """Denoiser (image.frag sirBird) output pinned against the numpy
     transliteration on a fixed input."""
-    from zig_vulkan_tpu.ops import denoise as denoise_mod
+    from zig_vulkan_jax.ops import denoise as denoise_mod
 
     g = np.load(_golden("denoiser_golden.npz"))
     out = np.asarray(denoise_mod.denoise(

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.config import BRICK_BITS, BRICK_WORDS, GridConfig
-from zig_vulkan_tpu.core import grid as g
+from zig_vulkan_jax.config import BRICK_BITS, BRICK_WORDS, GridConfig
+from zig_vulkan_jax.core import grid as g
 
 
 def small_grid(**kw):
@@ -200,7 +200,7 @@ def test_apply_edits_maintains_dielectric_masks():
     import jax
     import jax.numpy as jnp
 
-    from zig_vulkan_tpu.core.materials import terrain_materials
+    from zig_vulkan_jax.core.materials import terrain_materials
 
     mats = terrain_materials()  # material 0 = water (dielectric ir 1.333)
     grid = small_grid()

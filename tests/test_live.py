@@ -4,8 +4,8 @@ import io
 
 import numpy as np
 
-from zig_vulkan_tpu.app.live import HOLD_S, LiveViewer, frame_to_ansi
-from zig_vulkan_tpu.app.input import Key
+from zig_vulkan_jax.app.live import HOLD_S, LiveViewer, frame_to_ansi
+from zig_vulkan_jax.app.input import Key
 
 
 def test_frame_to_ansi_shapes_and_escapes():
@@ -72,7 +72,7 @@ def test_viewer_renders_frames_headless():
 
 
 def test_parse_sgr_mouse():
-    from zig_vulkan_tpu.app.live import parse_sgr_mouse
+    from zig_vulkan_jax.app.live import parse_sgr_mouse
 
     assert parse_sgr_mouse("35;10;22M") == ("mouse", (10.0, 22.0))
     assert parse_sgr_mouse("0;1;1m") == ("mouse", (1.0, 1.0))
@@ -86,7 +86,7 @@ def test_mouse_events_drive_camera_look():
     like the reference's cursorPosCallback path (main.zig:294-310)."""
     import numpy as np
 
-    from zig_vulkan_tpu.app.live import MOUSE_CELL_PIXELS
+    from zig_vulkan_jax.app.live import MOUSE_CELL_PIXELS
 
     v = _viewer()
     v.inp.mouse_ignore_frames = 0
@@ -103,7 +103,7 @@ def test_mouse_events_drive_camera_look():
 def test_cursor_shape_and_visibility_follow_menu_mode():
     """The 9-shape cursor analog (Input.zig:245-276): hidden/captured in
     game mode, shown with the GUI-selected shape in menu mode."""
-    from zig_vulkan_tpu.app.input import CursorShape
+    from zig_vulkan_jax.app.input import CursorShape
 
     v = _viewer()
     assert len(CursorShape) == 9

@@ -3,13 +3,18 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.config import GridConfig
-from zig_vulkan_tpu.core.grid import BrickGrid, dense_materials
-from zig_vulkan_tpu.io import terrain
-from zig_vulkan_tpu.io.native_builder import NativeGridBuilder, native_available
+from zig_vulkan_jax.config import GridConfig
+from zig_vulkan_jax.core.grid import BrickGrid, dense_materials
+from zig_vulkan_jax.io import terrain
+from zig_vulkan_jax.io.native_builder import NativeGridBuilder, native_available
 
-pytestmark = pytest.mark.skipif(not native_available(),
-                                reason="no native toolchain")
+
+@pytest.fixture(autouse=True)
+def _needs_native_toolchain():
+    # decided per test, not at import: every test worker must collect the
+    # same tests whether or not the library builds
+    if not native_available():
+        pytest.skip("no native toolchain")
 
 
 def test_insert_batch_matches_numpy():

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from zig_vulkan_tpu.config import CameraConfig, DenoiserConfig, SunConfig
-from zig_vulkan_tpu.core.camera import Camera
-from zig_vulkan_tpu.core.sun import Sun
-from zig_vulkan_tpu.models.scenes import flat_test_scene
-from zig_vulkan_tpu.ops import trace
-from zig_vulkan_tpu.parallel import mesh as pmesh
+from zig_vulkan_jax.config import CameraConfig, DenoiserConfig, SunConfig
+from zig_vulkan_jax.core.camera import Camera
+from zig_vulkan_jax.core.sun import Sun
+from zig_vulkan_jax.models.scenes import flat_test_scene
+from zig_vulkan_jax.ops import trace
+from zig_vulkan_jax.parallel import mesh as pmesh
 
 
 def test_sharded_render_matches_single_device():
@@ -70,7 +70,7 @@ def test_sharded_denoiser_halo_exact():
     (round-1 verdict item)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from zig_vulkan_tpu.ops import denoise as denoise_mod
+    from zig_vulkan_jax.ops import denoise as denoise_mod
 
     rng = np.random.default_rng(3)
     img = jnp.asarray(rng.random((32, 32, 3), dtype=np.float32))
@@ -96,7 +96,7 @@ def test_sharded_full_step_with_denoiser_close_to_single():
     allowed only at the isolated-grazing-ray level (different fusion
     shapes change FMA rounding; the RNG amplifies a flipped branch), so
     compare by mismatch fraction, not allclose."""
-    from zig_vulkan_tpu.ops import denoise as denoise_mod
+    from zig_vulkan_jax.ops import denoise as denoise_mod
 
     sc = flat_test_scene(dim=8)
     cam = Camera(75.0, 32, 32, CameraConfig(origin=(4.0, 6.5, 15.0),
@@ -121,45 +121,6 @@ def test_sharded_full_step_with_denoiser_close_to_single():
         m, sc.grid.static, arrays, mats, cam.d_camera, sun.device_data,
         denoiser=dn, out_size=(48, 48)))
     diff = np.abs(sharded - single).max(axis=-1)
-    assert (diff > 1e-3).mean() < 0.03, float((diff > 1e-3).mean())
-
-
-def test_sharded_pallas_tracer_matches_xla_path():
-    """The PRODUCTION Pallas region tracer running inside shard_map on the
-    8-device mesh (round-2 verdict: the dryrun/tests only exercised the
-    XLA fallback under sharding). Interpret mode on CPU; same step on the
-    same scene must match the XLA-wavefront sharded step."""
-    from zig_vulkan_tpu.ops import tile_tracer
-
-    sc = flat_test_scene(dim=8)
-    cam = Camera(75.0, 32, 32, CameraConfig(origin=(4.0, 6.5, 15.0),
-                                            samples_per_pixel=1, max_bounce=1))
-    sun = Sun(SunConfig(enabled=True))
-    arrays = sc.grid.device_arrays()
-    mats = trace.materials_to_device(sc.materials)
-    m = pmesh.make_mesh()
-    arrays_r, mats_r = pmesh.replicate_scene(m, arrays, mats)
-    tables = trace.build_trace_tables(sc.grid.static, arrays_r)
-    blocks = tile_tracer.build_region_tables(sc.grid.static, arrays_r, tables)
-
-    common = dict(width=32, height=32, spp=1,
-                  max_bounce=int(cam.d_camera.max_bounce),
-                  sun_enabled=True, denoiser=DenoiserConfig(enabled=False))
-    step_x = pmesh.build_sharded_step(m, sc.grid.static, **common)
-    step_p = pmesh.build_sharded_step(m, sc.grid.static, **common,
-                                      use_pallas=True, tile_interpret=True)
-    args = (trace.camera_vectors(cam.d_camera),
-            jnp.asarray(sun.device_data.position, jnp.float32),
-            jnp.asarray(sun.device_data.color, jnp.float32),
-            jnp.asarray(sun.device_data.radius, jnp.float32))
-    ref = np.asarray(step_x(arrays_r, mats_r, *args, tables=tables))
-    got = np.asarray(step_p(arrays_r, mats_r, *args, tables=tables,
-                            region_blocks=blocks))
-    assert got.shape == ref.shape
-    assert np.isfinite(got).all()
-    # identical semantics; traversal-order float noise only on isolated
-    # grazing rays (same bar as the other end-to-end sharded comparison)
-    diff = np.abs(got - ref).max(axis=-1)
     assert (diff > 1e-3).mean() < 0.03, float((diff > 1e-3).mean())
 
 

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.utils import quat as q
+from zig_vulkan_jax.utils import quat as q
 
 
 def test_identity_rotates_nothing():

@@ -8,7 +8,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from zig_vulkan_tpu.ops import rng
+from zig_vulkan_jax.ops import rng
 
 
 def _f32(*vals):

@@ -1,7 +1,7 @@
 import numpy as np
 
-from zig_vulkan_tpu.config import SunConfig
-from zig_vulkan_tpu.core.sun import Sun
+from zig_vulkan_jax.config import SunConfig
+from zig_vulkan_jax.core.sun import Sun
 
 
 def test_initial_state_matches_config():

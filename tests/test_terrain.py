@@ -1,8 +1,8 @@
 import numpy as np
 
-from zig_vulkan_tpu.config import GridConfig
-from zig_vulkan_tpu.core.grid import BrickGrid
-from zig_vulkan_tpu.io import terrain
+from zig_vulkan_jax.config import GridConfig
+from zig_vulkan_jax.core.grid import BrickGrid
+from zig_vulkan_jax.io import terrain
 
 
 def test_perlin_smooth_noise_range_and_continuity():

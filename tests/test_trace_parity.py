@@ -1,6 +1,6 @@
 """Pixel parity: JAX wavefront tracer vs the independent CPU DDA oracle.
 
-The TPU tracer (ops.trace, flattened state-machine DDA) and the oracle
+The JAX tracer (ops.trace, flattened state-machine DDA) and the oracle
 (oracle.cpu_tracer, GLSL-structured nested loops) are two independent
 implementations of the reference kernel's semantics. Primary-ray renders
 must match bit-near-exactly; scatter/sun paths use sin-hash RNG whose ULP
@@ -13,12 +13,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from zig_vulkan_tpu.config import CameraConfig, SunConfig
-from zig_vulkan_tpu.core.camera import Camera
-from zig_vulkan_tpu.core.sun import Sun
-from zig_vulkan_tpu.models.scenes import flat_test_scene
-from zig_vulkan_tpu.oracle import cpu_tracer as oracle
-from zig_vulkan_tpu.ops import trace
+from zig_vulkan_jax.config import CameraConfig, SunConfig
+from zig_vulkan_jax.core.camera import Camera
+from zig_vulkan_jax.core.sun import Sun
+from zig_vulkan_jax.models.scenes import flat_test_scene
+from zig_vulkan_jax.oracle import cpu_tracer as oracle
+from zig_vulkan_jax.ops import trace
 
 
 @pytest.fixture(scope="module")

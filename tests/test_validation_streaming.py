@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.config import (
+from zig_vulkan_jax.config import (
     CameraConfig, DenoiserConfig, EngineConfig, GridConfig, SunConfig)
-from zig_vulkan_tpu.core.grid import BrickGrid, dense_materials
-from zig_vulkan_tpu.engine.engine import VoxelRT
-from zig_vulkan_tpu.io import streaming, terrain
-from zig_vulkan_tpu.models.scenes import flat_test_scene
-from zig_vulkan_tpu.utils import validation
+from zig_vulkan_jax.core.grid import BrickGrid, dense_materials
+from zig_vulkan_jax.engine.engine import VoxelRT
+from zig_vulkan_jax.io import streaming, terrain
+from zig_vulkan_jax.models.scenes import flat_test_scene
+from zig_vulkan_jax.utils import validation
 
 
 def test_validate_scene_accepts_good_scene():
@@ -51,7 +51,7 @@ def test_streamed_terrain_matches_batch_build():
     assert total > 0
 
     # pull device arrays back and compare scene semantics with the batch build
-    from zig_vulkan_tpu.core.grid import GridArrays
+    from zig_vulkan_jax.core.grid import GridArrays
 
     got = GridArrays(
         statuses=np.asarray(rt.arrays.statuses),

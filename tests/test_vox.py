@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from zig_vulkan_tpu.io import vox
+from zig_vulkan_jax.io import vox
 
 
 def test_validate_header_valid_accepted():
@@ -121,14 +121,14 @@ def test_real_asset_renders_a_frame(tmp_path):
     path = os.path.join(_REF_MODELS, "doom.vox")
     if not os.path.exists(path):
         pytest.skip("reference assets not mounted")
-    from zig_vulkan_tpu.core.grid import BrickGrid
-    from zig_vulkan_tpu.core.materials import (
+    from zig_vulkan_jax.core.grid import BrickGrid
+    from zig_vulkan_jax.core.materials import (
         fill_from_vox_palette, terrain_materials)
-    from zig_vulkan_tpu.config import GridConfig
-    from zig_vulkan_tpu.models.scenes import insert_vox_model
-    from zig_vulkan_tpu.ops import trace
-    from zig_vulkan_tpu.core.camera import Camera
-    from zig_vulkan_tpu.config import CameraConfig
+    from zig_vulkan_jax.config import GridConfig
+    from zig_vulkan_jax.models.scenes import insert_vox_model
+    from zig_vulkan_jax.ops import trace
+    from zig_vulkan_jax.core.camera import Camera
+    from zig_vulkan_jax.config import CameraConfig
 
     v = vox.load(path)
     grid = BrickGrid(32, 32, 32, GridConfig(scale=1.0))  # 128^3 voxels fits doom (126^3)
